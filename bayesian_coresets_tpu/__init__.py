@@ -1,7 +1,7 @@
-"""bayesian_coresets_tpu — a TPU-native Bayesian-coreset inference engine.
+"""bayesian_coresets_tpu — a Bayesian-coreset inference engine in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the full capability surface of
-``trevorcampbell/bayesian-coresets`` (reference mounted at /root/reference):
+A from-scratch JAX/XLA re-design with the full capability surface of
+``trevorcampbell/bayesian-coresets`` (the reference; see SURVEY.md):
 
 - Hilbert coresets via sparse non-negative least squares
   (GIGA / Frank-Wolfe / Orthogonal Pursuit / Importance / Uniform sampling)

@@ -5,7 +5,7 @@ discretize log-likelihoods into per-datum feature vectors, form the system
 A = vecs.T, b = sum of vecs, and delegate to a pluggable snnls solver
 (default GIGA).  Weights map back through the (optional) subsample indices.
 
-TPU-native departures:
+Departures from the reference:
 - the (n, S) projection is one jitted matmul-dominated evaluation;
 - the subsample keeps a *static* trace shape: the reference's
   ``np.unique(np.random.randint(...))`` (hilbert.py:16) shrinks the array,
@@ -26,7 +26,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from ..ops.snnls import GIGA, make_consts_quantized
+from ..ops.snnls import GIGA, above_norm_floor, make_consts_quantized
 from .coreset import Coreset
 from .projector import Projector
 
@@ -72,12 +72,16 @@ class HilbertCoreset(Coreset):
             uniq[np.unique(sub_idcs, return_index=True)[1]] = True
             vecs = np.asarray(ll_projector.project(data[sub_idcs]))
             valid = uniq
-        # mask zero vectors instead of pruning (hilbert.py:20-22)
-        valid = valid & (np.sqrt((vecs**2).sum(axis=1)) > 0.0)
+        # mask zero vectors instead of pruning (hilbert.py:20-22), and rows
+        # below the float32 floor as candidates (see above_norm_floor)
+        norms = np.sqrt((vecs**2).sum(axis=1))
+        mean_norm = float(norms[valid].mean())      # over the distinct rows
+        valid = valid & (norms > 0.0)
+        b = vecs[valid].sum(axis=0)
+        valid = valid & above_norm_floor(norms, np.linalg.norm(b), mean_norm)
         if not valid.any():
             raise ValueError("all projected vectors are zero or masked")
 
-        b = vecs[valid].sum(axis=0)
         if mesh is not None:
             # in-memory data-parallel path: pad + shard the projected system
             # over the mesh's data axis; the facade then runs every
@@ -105,8 +109,8 @@ class HilbertCoreset(Coreset):
         ``mesh``: quantized chunks stream directly into per-device row
         shards (``_init_streamed_sharded``) and the solver runs the
         shard_map SPMD build — the beyond-HBM ceiling scales with the
-        device count (8 x v5e ~ N=160M at S=512) with no host- or
-        single-device-resident copy of the full matrix ever existing.
+        device count, with no host- or single-device-resident copy of the
+        full matrix ever existing.
         """
         if n_subsample is not None:
             raise ValueError("stream_chunk_size and n_subsample are mutually "
@@ -143,7 +147,7 @@ class HilbertCoreset(Coreset):
             vecs = ll_projector.project(jnp.asarray(xc))
             if buf is None:
                 S = vecs.shape[1]
-                # allocate pre-padded (row tile multiple x lane multiple) so
+                # allocate pre-padded (1024-row x 128-column multiples) so
                 # make_consts_quantized never has to copy the big buffer
                 rows = _round_up(max(n, n_chunks * chunk), 1024)
                 Sp = _round_up(S, 128)
@@ -155,7 +159,8 @@ class HilbertCoreset(Coreset):
 
         norms = np.concatenate(norm_chunks)
         pad = buf.shape[0] - n
-        valid = np.pad(norms > 0.0, (0, pad))
+        valid = np.pad(above_norm_floor(norms, float(jnp.linalg.norm(b))),
+                       (0, pad))
         if not valid.any():
             raise ValueError("all projected vectors are zero or masked")
         sampling = snnls_cls.method if snnls_cls.method in ("importance", "uniform") else None
@@ -179,7 +184,7 @@ class HilbertCoreset(Coreset):
         ever holds more than its 1/|mesh| int8 shard plus one f32 chunk.
         The construction itself is parallel/streamed.py
         ``make_streamed_quantized_consts`` (whose multi-controller form
-        lets each pod host pass only its ``streamed_row_layout`` rows);
+        lets each host pass only its ``streamed_row_layout`` rows);
         the solver then runs the shard_map SPMD build (parallel/coreset.py).
         Projectors whose ``project`` is not jax-traceable (numpy/scipy
         internals) fall back to default-device projection with int8
@@ -224,20 +229,22 @@ class HilbertCoreset(Coreset):
             # fallback here would double peak device memory at exactly
             # the beyond-HBM sizes this path exists for.
             consts = None
-        if consts is not None and self._spmd_stream_mismatch(
-                data, ll_projector, consts, mesh, n):
+        bad = [] if consts is None else [
+            p for p in self.spmd_probe(data, ll_projector, consts)
+            if not p["ok"]]
+        if bad:
             # jax-traceable but NOT shard_map-safe (e.g. normalizes by the
             # batch shape, or closes over a differently-sharded array): the
             # trace-error fallback can't see this, so one probe row per
             # device shard is re-projected on the default device and
-            # compared against the committed int8 rows/norms (VERDICT r4
-            # weak #6).  The hostproj fallback reproduces the
+            # compared against the committed int8 rows/norms.  The
+            # hostproj fallback reproduces the
             # single-device stream's semantics exactly.
             self.log.warning(
                 "streamed-sharded SPMD projection disagrees with the "
-                "default-device projection on probe rows (the projector is "
-                "jax-traceable but not shard_map-safe); falling back to "
-                "default-device projection with int8 shipping")
+                "default-device projection on probe rows %s (the projector "
+                "is jax-traceable but not shard_map-safe); falling back to "
+                "default-device projection with int8 shipping", bad)
             consts = None                 # release the SPMD buffers first
         if consts is None:
             self._init_streamed_sharded_hostproj(
@@ -252,35 +259,45 @@ class HilbertCoreset(Coreset):
         self.data = data
 
     @staticmethod
-    def _spmd_stream_mismatch(data, ll_projector, consts, mesh, n: int) -> bool:
+    def spmd_probe(data, ll_projector, consts, rows=None) -> list[dict]:
         """Probe-row cross-check of the SPMD streamed projection.
 
-        One row per device shard is projected on the DEFAULT device (the
-        exact computation the single-device stream would run), quantized
-        with the same kernel, and compared against the committed sharded
-        int8 rows + f32 norms.  The SPMD projection compiles into a
-        different program (shard_map fusion), so int8 values may differ by
-        +-1 at round boundaries and norms by f32 ulps — the tolerances
-        admit that and nothing else.  Costs one tiny projection + an
-        O(devices * S) gather; runs once per construction.
-        """
-        from ..parallel.mesh import DATA_AXIS
-        from ..parallel.streamed import streamed_row_layout
+        Each probe row is projected on the DEFAULT device (the exact
+        computation the single-device stream would run), quantized with the
+        same kernel, and compared against the committed sharded int8 row
+        and f32 norm.  The SPMD projection compiles into a different
+        program (shard_map fusion), so int8 values may differ by +-1 at
+        round boundaries and norms by f32 ulps — ``ok`` admits that and
+        nothing else.
 
-        _, rows_loc, _, _ = streamed_row_layout(n, mesh)
-        ndata = mesh.shape[DATA_AXIS]
-        probe = np.asarray([k * rows_loc for k in range(ndata)
-                            if k * rows_loc < n], np.int64)
-        vecs = jnp.asarray(np.asarray(ll_projector.project(jnp.asarray(data[probe]))))
-        q_h, nrm_h, _ = _quantize_chunk(vecs, jnp.int32(len(probe)))
+        ``rows`` defaults to each device shard's first selectable row: a row
+        below the norm floor is never a candidate, and its norm is stored
+        as 1 (``make_consts_quantized``), so it has no committed norm to
+        compare.  Returns one dict per row: the global row, the largest
+        int8 difference and both norms.  Costs one tiny projection and an
+        O(rows * S) gather; runs once per construction.
+        """
+        if rows is None:
+            rows = []
+            for shard in consts.valid.addressable_shards:
+                i = int(jnp.argmax(shard.data))          # first selectable row
+                if bool(shard.data[i]):
+                    rows.append((shard.index[0].start or 0) + i)
+        if not len(rows):
+            return []
+        rows = np.asarray(sorted(rows), np.int64)
+        vecs = jnp.asarray(np.asarray(ll_projector.project(jnp.asarray(data[rows]))))
+        q_h, nrm_h, _ = _quantize_chunk(vecs, jnp.int32(len(rows)))
         S = q_h.shape[1]
-        rows = jnp.asarray(probe)         # buffer row i == global data row i
-        q_s = np.asarray(consts.V[rows], np.int32)[:, :S]
-        nrm_s = np.asarray(consts.norms[rows])
+        idx = jnp.asarray(rows)           # buffer row i == global data row i
+        q_s = np.asarray(consts.V[idx], np.int32)[:, :S]
+        nrm_s = np.asarray(consts.norms[idx])
         nrm_h = np.asarray(nrm_h)
-        int8_bad = (np.abs(np.asarray(q_h, np.int32) - q_s) > 1).any()
+        dq = np.abs(np.asarray(q_h, np.int32) - q_s).max(axis=1)
         rel = np.abs(nrm_h - nrm_s) / np.maximum(np.abs(nrm_h), 1e-30)
-        return bool(int8_bad or (rel > 1e-4).any())
+        return [{"row": int(r), "int8_max_diff": int(d), "norm_default": float(a),
+                 "norm_spmd": float(b), "ok": bool(d <= 1 and e <= 1e-4)}
+                for r, d, a, b, e in zip(rows, dq, nrm_h, nrm_s, rel)]
 
     def _init_streamed_sharded_hostproj(self, data, ll_projector, chunk: int,
                                         snnls_cls, seed: int, max_active,
@@ -338,7 +355,8 @@ class HilbertCoreset(Coreset):
         n = data.shape[0]
         rows_glob, Sp = Vq.shape
         real = np.arange(rows_glob) < n
-        valid = real & (norms_host > 0.0)
+        valid = real & above_norm_floor(norms_host, np.linalg.norm(b_total),
+                                        float(norms_host[real].mean()))
         if not valid.any():
             raise ValueError("all projected vectors are zero or masked")
         sampling = snnls_cls.method if snnls_cls.method in ("importance", "uniform") else None

@@ -19,7 +19,7 @@ Two layers:
 - :class:`Projector`/:class:`BlackBoxProjector` — the reference's stateful
   user API (reference projector.py:4-32), wrapping a TangentFamily.
 
-TPU-native departures:
+Departures from the reference:
 - samplers are keyed: ``sampler(key, n_samples, wts, pts)`` (explicit PRNG
   instead of the reference's global NumPy stream);
 - ``project`` is jitted, batched over data, and returns fixed-shape arrays;

@@ -9,7 +9,7 @@ re-optimizes all active weights with projected Adam where *every* gradient
 step rebuilds the context (reference sparsevi.py:69-76 via
 projector.py:31-32).
 
-TPU-native design: the entire ``build(itrs)`` — greedy selection, posterior
+Design: the entire ``build(itrs)`` — greedy selection, posterior
 refits (closed-form or jittable Newton-Laplace), fresh Monte-Carlo
 projections inside every Adam step — is ONE jitted ``lax.while_loop`` whose
 inner optimizer is a ``lax.scan``; coreset storage is a fixed-capacity slot

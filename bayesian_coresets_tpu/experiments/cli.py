@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 
+from ..utils.cache import enable_compilation_cache
 from . import plotting, results
 
 
@@ -58,6 +59,8 @@ class _SharedArgs:
             s.add_argument(*a, **k)
 
     def parse_args(self, argv=None):
+        # every driver parses its arguments once, before it compiles
+        enable_compilation_cache()
         return self._parser.parse_args(argv)
 
     def error(self, msg):

@@ -1,6 +1,6 @@
 """Synthetic multivariate-Gaussian coreset experiment.
 
-TPU-native driver with the capability surface of the reference's
+Driver with the capability surface of the reference's
 ``examples/gaussian/main.py``: seven algorithms (SparseVI exact/black-box,
 GIGA with optimal/realistic/exact projectors, uniform sampling), incremental
 builds over a log-spaced size grid, closed-form posterior quality metrics
@@ -184,7 +184,7 @@ ALGS = ["SVI", "SVI-EXACT", "GIGA-OPT", "GIGA-OPT-EXACT", "GIGA-REAL",
 
 
 def main(argv=None):
-    parser, run_p, _ = make_parser("Gaussian KL coreset experiment (TPU-native)")
+    parser, run_p, _ = make_parser("Gaussian KL coreset experiment")
     run_p.set_defaults(func=run)
     parser.add_argument("--data_num", type=int, default=1000)
     parser.add_argument("--data_dim", type=int, default=200)

@@ -1,6 +1,6 @@
 """Bayesian RBF linear-regression coreset experiment.
 
-TPU-native driver with the capability surface of the reference's
+Driver with the capability surface of the reference's
 ``examples/linear_regression/main.py``: housing-price data (or a synthetic
 stand-in — the reference's prices2018.npy is not distributed), multi-scale
 RBF bases with a constant basis, closed-form posterior, seven algorithms
@@ -204,7 +204,7 @@ def run(arguments):
 
 
 def main(argv=None):
-    parser, run_p, _ = make_parser("RBF linear regression coreset experiment (TPU-native)")
+    parser, run_p, _ = make_parser("RBF linear regression coreset experiment")
     run_p.set_defaults(func=run)
     parser.add_argument("--data_num", type=int, default=10000)
     parser.add_argument("--alg", type=str, default="GIGA-OPT", choices=ALGS)

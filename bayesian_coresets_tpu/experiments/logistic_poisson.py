@@ -1,6 +1,6 @@
 """Logistic / Poisson regression coreset experiment with weighted NUTS.
 
-TPU-native driver with the capability surface of the reference's
+Driver with the capability surface of the reference's
 ``examples/logistic_poisson_regression/main.py``: real datasets, cached
 full-data MCMC, Laplace-based projectors (tuned / untuned / black-box),
 four algorithms (SVI, GIGA-OPT, GIGA-REAL, US), per-size weighted-NUTS
@@ -93,13 +93,13 @@ def run(arguments):
 
     # full-data posterior via weighted NUTS, cached (reference main.py:107-127;
     # cache key fixed to cover sample count / chains / trial, see
-    # full_cache_path).  Chains are vmapped with pooled adaptation — the
-    # single-chain default is a TPU anti-pattern (sequential tiny ops).
+    # full_cache_path).  Chains are vmapped with pooled adaptation: a single
+    # chain is a sequence of tiny dependent ops that leaves the device idle.
     nc = max(1, int(arguments.mcmc_chains))
     mesh = None
     if getattr(arguments, "chain_mesh", False):
         # route all NUTS through the framework's multi-device chain sharding
-        # (parallel/mcmc.py): on a pod slice each chip runs its resident
+        # (parallel/mcmc.py): on several devices each one runs its resident
         # chains; on one device this is a no-op placement.  Chains round up
         # to a multiple of the device count.
         from ..parallel.mesh import CHAIN_AXIS, make_mesh
@@ -288,12 +288,8 @@ def run(arguments):
         rhats[m], esses[m] = chain_diagnostics(res_cst)
         if unconverged(rhats[m], esses[m], arguments.ess_gate) \
                 and not arguments.dense_mass:
-            # first retry stays ON the accelerator with the dense (d, d)
-            # metric (residual posterior correlation the diagonal cannot
-            # equalize).  Measured on the reference suite this path never
-            # fires: the stable pairwise-difference likelihood converges
-            # every dataset incl. the _large variants at the diagonal
-            # metric (PARITY_RESULTS "Large reference datasets")
+            # retry with the dense (d, d) metric (residual posterior
+            # correlation the diagonal cannot equalize)
             print(f"M = {Ms[m]}: coreset chains unconverged "
                   f"(split-R-hat {rhats[m]:.3f}, min ESS {esses[m]:.0f}); "
                   f"retrying with dense mass matrix")
@@ -305,27 +301,6 @@ def run(arguments):
                 num_warmup=arguments.mcmc_samples_coreset,
                 max_depth=arguments.max_treedepth,
                 dense_mass=True, mesh=mesh)
-            cst_samples = np.asarray(cst_samples)
-            rhats[m], esses[m] = chain_diagnostics(res_cst)
-        if unconverged(rhats[m], esses[m], arguments.ess_gate) \
-                and arguments.cpu_fallback:
-            # last resort, opt-in only: retry on host CPU (libm ~0.5 ULP
-            # transcendentals).  Off by default — the stable-difference
-            # density converges every reference dataset on the TPU itself
-            # without even the dense-metric retry firing.
-            print(f"M = {Ms[m]}: coreset chains unconverged on accelerator "
-                  f"(split-R-hat {rhats[m]:.3f}, min ESS {esses[m]:.0f}); "
-                  f"retrying on CPU")
-            key, kmc2 = jax.random.split(key)
-            with jax.default_device(jax.devices("cpu")[0]):
-                cst_samples, t_cst, res_cst = mcmc.run(
-                    model, jnp.asarray(pts_m), jnp.asarray(wts_m), n_cst, kmc2,
-                    d=dth, num_chains=nc,
-                    target_accept=arguments.target_accept,
-                    pooled_adaptation=nc > 1,
-                    num_warmup=arguments.mcmc_samples_coreset,
-                    max_depth=arguments.max_treedepth,
-                    dense_mass=True)
             cst_samples = np.asarray(cst_samples)
             rhats[m], esses[m] = chain_diagnostics(res_cst)
         if unconverged(rhats[m], esses[m], arguments.ess_gate):
@@ -371,7 +346,8 @@ def main(argv=None):
     parser.add_argument("--mcmc_samples_coreset", type=int, default=10000)
     parser.add_argument("--mcmc_chains", type=int, default=8,
                         help="vmapped NUTS chains (pooled adaptation when >1); "
-                             "chain parallelism is the TPU throughput lever")
+                             "chain parallelism is the accelerator's "
+                             "throughput lever")
     parser.add_argument("--target_accept", type=float, default=0.9,
                         help="NUTS acceptance target (Stan adapt_delta)")
     parser.add_argument("--dense_mass", action="store_true",
@@ -384,10 +360,6 @@ def main(argv=None):
                         help="min bulk-ESS (over dims, all chains pooled) a "
                              "run must reach before its metrics are recorded; "
                              "failing runs retry like an R-hat failure")
-    parser.add_argument("--cpu_fallback", action="store_true",
-                        help="retry still-unconverged coreset chains on host "
-                             "CPU (last resort; the on-device dense-metric "
-                             "retry should make this unnecessary)")
     parser.add_argument("--data_mesh", type=int, default=0,
                         help="(GIGA-*) shard dataset rows over this many "
                              "devices (shard_map SPMD build; composes with "

@@ -61,7 +61,7 @@ def run(arguments):
 
 
 def main(argv=None):
-    parser, run_p, _ = make_parser("Sparse nonnegative regression comparison (TPU-native)")
+    parser, run_p, _ = make_parser("Sparse nonnegative regression comparison")
     run_p.set_defaults(func=run)
     parser.add_argument("--alg", type=str, default="GIGA", choices=list(ALGS))
     parser.add_argument("--data_num", type=int, default=10000)

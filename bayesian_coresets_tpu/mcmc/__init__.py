@@ -1,6 +1,6 @@
 """MCMC subsystem: weighted-likelihood NUTS/HMC in pure JAX.
 
-TPU-native replacement for the reference's pystan + hand-edited weighted
+Pure-JAX replacement for the reference's pystan + hand-edited weighted
 Stan C++ (SURVEY.md §2.2 C20/C21, §2.4): the weight vector enters the
 jittable log-density directly, chains are vmapped/shardable, and the
 sampler compiles once per model.

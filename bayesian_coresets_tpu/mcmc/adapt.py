@@ -88,9 +88,10 @@ def welford_update_batch(state: WelfordState, xs) -> WelfordState:
     delta = batch_mean - state.mean
     mean = state.mean + delta * (c / count)
     if state.m2.ndim == 2:
-        # full-f32 scatter: this matrix becomes the inverse mass, and bf16
-        # matmul inputs (the TPU default) would bake ~0.8% relative noise
-        # into the metric NUTS integrates under (see integrators.mass_mul)
+        # full-f32 scatter: this matrix becomes the inverse mass, and
+        # reduced-precision matmul inputs (TF32 is the GPU default) would
+        # bake that rounding into the metric NUTS integrates under (see
+        # integrators.mass_mul)
         batch_m2 = _jnp.matmul(centered.T, centered,
                                precision=jax.lax.Precision.HIGHEST)
         m2 = (state.m2 + batch_m2

@@ -1,7 +1,7 @@
 """Fixed-trajectory HMC kernel (companion to NUTS).
 
 Not present in the reference (Stan's NUTS is its only sampler), but exposed
-because a fixed-length kernel maps perfectly onto the TPU (static trajectory
+because a fixed-length kernel suits an accelerator (static trajectory
 length → no data-dependent while_loop) and is often faster per effective
 sample for well-conditioned weighted posteriors.
 """

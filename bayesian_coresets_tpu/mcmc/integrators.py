@@ -35,9 +35,9 @@ def mass_mul(inv_mass, r):
     """M^{-1} r (the metric velocity).  ``r`` may be (d,) or batched (K, d);
     the dense inverse mass is symmetric so ``r @ inv_mass`` covers both.
 
-    The dense matmul pins full-f32 precision: TPU matmuls default to bf16
+    The dense matmul pins full-f32 precision: GPU matmuls default to TF32
     inputs, and NUTS energy differences are exactly the quantity this repo
-    documents (weighted.py) as poisoned by bf16 — a direct
+    documents (weighted.py) as poisoned by reduced precision — a direct
     run_nuts(dense_mass=True) must be safe without the caller wrapping it
     in default_matmul_precision('highest').  At d<=16 the cost is nil."""
     if inv_mass.ndim == 1:

@@ -6,7 +6,7 @@ and stan_cache/*.cpp).  Weighted likelihoods need no codegen surgery here:
 the weights enter the jittable log-density as ``sum_i w_i * ll_i(theta)``
 (see mcmc/weighted.py), and the sampler is model-agnostic.
 
-Design notes (TPU/XLA):
+Design notes (XLA):
 - Recursion is replaced by the standard iterative doubling scheme with a
   binary-counter checkpoint stack (slot = popcount(leaf index) for even
   leaves; odd leaves check U-turns against a contiguous slot range derived
@@ -117,8 +117,8 @@ def _build_subtree(value_and_grad_fn, start: IntegratorState, num_steps, step,
 
         # vectorized U-turn checks against all checkpoint slots at once
         # (a fori_loop here puts ~max_depth sequential gathers+dots on the
-        # per-leapfrog critical path — NUTS is latency-bound on TPU, so the
-        # slot loop must be two matvecs + a masked any())
+        # per-leapfrog critical path — NUTS is latency-bound on an
+        # accelerator, so the slot loop must be two matvecs + a masked any())
         ks = jnp.arange(max_depth)
         in_range = (ks >= idx_min) & (ks <= idx_max) & ~is_even
         dz = s.z[None, :] - ckpt_z                        # (max_depth, d)

@@ -158,11 +158,11 @@ def run(model, z, wts, n_samples: int, key, d: int | None = None,
     z = jnp.asarray(z)
     if d is None:
         d = z.shape[1]
-    # NUTS energy differences need full-f32 logits: TPU matmuls default to
-    # bf16 inputs (~0.8% relative), which scaled by weight*count poisons the
-    # Hamiltonian and collapses step-size adaptation (chains froze on
-    # airportdelays/biketrips with adapted steps ~1e-3 while the same
-    # arithmetic on f32 CPU adapted to ~0.55).  The sampler's matmuls are
+    # NUTS energy differences need full-f32 logits: reduced-precision matmul
+    # inputs (bf16 on some accelerators, TF32 by default on GPUs), scaled by
+    # weight*count, poison the Hamiltonian and collapse step-size adaptation
+    # (chains froze on airportdelays/biketrips with adapted steps ~1e-3
+    # while the same arithmetic on f32 CPU adapted to ~0.55).  The sampler's matmuls are
     # (n, d) logits — negligible next to the coreset-build hot path.
     with jax.default_matmul_precision("highest"):
         lap = fit_laplace(model, z, wts, d) if (precondition and init is None) else None
@@ -176,13 +176,11 @@ def run(model, z, wts, n_samples: int, key, d: int | None = None,
                 # the density (and its grad path) computes in f64 and the
                 # small RELATIVE value is rounded back to f32.  Default OFF,
                 # and since the stable pairwise-difference likelihood
-                # (models.*.log_likelihood_diff — measured converging every
-                # reference dataset incl. biketrips/airportdelays _large on
-                # TPU at f32, PARITY_RESULTS "Large reference datasets")
-                # removed the cancellation at the source, this island is a
-                # diagnostic tool rather than a convergence requirement;
-                # f64 emulation through a full NUTS tree is impractically
-                # slow on current TPU runtimes anyway.
+                # (models.*.log_likelihood_diff, which converged every
+                # reference dataset incl. biketrips/airportdelays _large at
+                # f32) removed the cancellation at the source, this island
+                # is a diagnostic tool rather than a convergence
+                # requirement.
                 x64_ctx = jax.enable_x64()
             else:
                 import contextlib

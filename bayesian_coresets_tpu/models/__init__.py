@@ -1,10 +1,10 @@
 """Model subsystem: batched log-densities, gradients, conjugate closed forms.
 
-TPU-native re-design of the reference's ``examples/common/model_*.py``
+JAX re-design of the reference's ``examples/common/model_*.py``
 modules (model_gaussian.py, model_linreg.py, model_lr.py, model_poiss.py).
 Every function is pure, jittable, and batched over both data (n) and
 posterior samples (S) so the (n x S) log-likelihood discretization used by
-the projectors is a single fused matmul+elementwise graph on the MXU/VPU.
+the projectors is a single fused matmul+elementwise graph.
 """
 
 from . import gaussian, linreg, logistic, poisson

@@ -4,7 +4,7 @@ Covers the reference's ``examples/common/model_gaussian.py:4-30``: batched
 log-likelihood, data-gradient, Gaussian-vs-Gaussian KL, and the closed-form
 weighted posterior.  All linear algebra is batched (Cholesky + triangular
 solves) and jittable; the (n, S) likelihood matrix comes from one
-``x @ Siginv @ th.T`` matmul chain that XLA maps onto the MXU.
+``x @ Siginv @ th.T`` matmul chain.
 
 Model: x_i ~ N(theta, Sig), theta ~ N(mu0, Sig0).
 """
@@ -28,11 +28,15 @@ def log_likelihood(x: jax.Array, th: jax.Array, Siginv: jax.Array, logdetSig) ->
     x = jnp.atleast_2d(x)
     th = jnp.atleast_2d(th)
     d = x.shape[1]
-    xS = x @ Siginv                                  # (n, d)
+    # HIGHEST: this matrix is the Hilbert projection, and float32 dots at
+    # the default precision run in TF32 on an H100 (models/logistic.py)
+    hi = jax.lax.Precision.HIGHEST
+    xS = jnp.dot(x, Siginv, precision=hi)            # (n, d)
     xSx = jnp.sum(xS * x, axis=1)                    # (n,)
-    thS = th @ Siginv                                # (S, d)
+    thS = jnp.dot(th, Siginv, precision=hi)          # (S, d)
     thSth = jnp.sum(thS * th, axis=1)                # (S,)
-    cross = jnp.dot(xS, th.T, preferred_element_type=jnp.float32)  # (n, S)
+    cross = jnp.dot(xS, th.T, precision=hi,
+                    preferred_element_type=jnp.float32)  # (n, S)
     quad = xSx[:, None] + thSth[None, :] - 2.0 * cross
     return -0.5 * d * _LOG2PI - 0.5 * logdetSig - 0.5 * quad
 
@@ -138,7 +142,7 @@ class PosteriorBasis(NamedTuple):
     refit (SparseVI/BPSVI run one per Adam step, reference sparsevi.py:70-74)
     becomes diagonal scaling + matmuls with NO per-step factorization.
     This removes the latency-bound d x d Cholesky from the inner loop and
-    leaves only MXU-friendly work.
+    leaves only matmuls.
     """
 
     Uinv: jax.Array    # (d, d) = V^T L0^{-1};  U^{-1}

@@ -42,11 +42,14 @@ def log_likelihood(z: jax.Array, th: jax.Array, sigsq) -> jax.Array:
     The residual is computed as (y - x.th)^2 rather than the reference's
     expanded y^2 - 2*pred*y + pred^2 — identical in exact arithmetic, but
     the expanded form cancels catastrophically in f32 when the posterior is
-    concentrated (the centered projections underflow to zero).
+    concentrated (the centered projections underflow to zero).  The dot
+    runs at HIGHEST precision: this matrix is the Hilbert projection, and
+    float32 dots at the default precision run in TF32 on an H100.
     """
     x, y = _split(z)
     th = jnp.atleast_2d(th)
-    pred = jnp.dot(x, th.T, preferred_element_type=jnp.float32)      # (n, S)
+    pred = jnp.dot(x, th.T, precision=jax.lax.Precision.HIGHEST,
+                   preferred_element_type=jnp.float32)               # (n, S)
     resid_sq = (y[:, None] - pred) ** 2
     return -0.5 * jnp.log(2.0 * jnp.pi * sigsq) - resid_sq / (2.0 * sigsq)
 
@@ -130,7 +133,7 @@ def weighted_post_lowrank(basis: LowRankBasis, z, w):
     ``prec = Sig0inv + X^T diag(w) X / sigsq = L0 (I + W^T W) L0^T`` with
     ``W = diag(sqrt(w)) X L0^{-T} / sigma`` (m, d): an eigh of the (m, m)
     Gram replaces the (m+d, d) QR on SparseVI's per-Adam-step critical path
-    (reference sparsevi.py:70-74) — everything else is MXU matmuls.
+    (reference sparsevi.py:70-74) — everything else is matmuls.
 
     Returns ``(mu, F)`` with ``Sig = F F^T`` (non-triangular factor; valid
     wherever only the Gram matters — tangent features, sampling).

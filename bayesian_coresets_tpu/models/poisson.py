@@ -28,9 +28,12 @@ def _split(z):
 def _logits(x, th):
     th = jnp.atleast_2d(th)
     # accumulate at (at least) the input precision: forcing f32 here would
-    # silently downcast the f64 log-density island used by mcmc.run
+    # silently downcast the f64 log-density island used by mcmc.run.
+    # HIGHEST: these logits feed the Hilbert projection, and float32 dots
+    # at the default precision run in TF32 on an H100 (models/logistic.py)
     acc = jnp.promote_types(x.dtype, jnp.float32)
-    return jnp.dot(x, th.T, preferred_element_type=acc)  # (n, S)
+    return jnp.dot(x, th.T, precision=jax.lax.Precision.HIGHEST,
+                   preferred_element_type=acc)  # (n, S)
 
 
 def compute_s(th: jax.Array, x: jax.Array) -> jax.Array:
@@ -56,7 +59,7 @@ def log_likelihood_diff(z: jax.Array, th: jax.Array, ref: jax.Array) -> jax.Arra
     subtraction cancels catastrophically for count data (|ll_i| ~ y log y
     reaches 1e3-1e4 here, and coreset weights multiply the resulting f32
     rounding into O(1) Hamiltonian noise — the mechanism that left
-    biketrips/airportdelays coreset chains unconverged on TPU).  Exact
+    biketrips/airportdelays coreset chains unconverged in float32).  Exact
     identities keep every term accurate relative to its own magnitude:
 
       lam(a) - lam(b)         = log1p(sigmoid(b) expm1(a-b))

@@ -5,7 +5,7 @@ here by pure-JAX weighted NUTS) plus scipy's Fortran Lawson-Hanson NNLS
 (reference snnls/snnls.py:87).  This package provides a from-scratch C++
 Lawson-Hanson solver compiled on first use (g++, cached in the user cache
 dir) and loaded through ctypes — no Fortran, no scipy requirement on the
-host path.  All TPU-side solves use the on-chip FISTA kernel (ops/nnls.py);
+host path.  All device-side solves use the on-device FISTA solver (ops/nnls.py);
 this exact solver backs host ``optimize()`` paths and serves as a
 correctness oracle in tests.
 """

@@ -2,7 +2,7 @@
 //
 // Native replacement for the reference's scipy.optimize.nnls dependency
 // (Fortran Lawson-Hanson invoked at reference snnls/snnls.py:87 and
-// snnls/orthopursuit.py:40).  The TPU compute path uses the on-chip FISTA
+// snnls/orthopursuit.py:40).  The device compute path uses the FISTA
 // solver (ops/nnls.py); this exact host-side solver serves the host
 // `optimize()` path and as a correctness oracle, with no Fortran runtime.
 //

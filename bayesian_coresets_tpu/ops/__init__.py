@@ -1,6 +1,6 @@
 """Numerical kernels: sparse NNLS solvers, on-chip NNLS, projected Adam.
 
-TPU-native replacement for the reference's L1 layer
+JAX replacement for the reference's L1 layer
 (``bayesiancoresets/snnls`` + ``bayesiancoresets/util/opt.py``); see
 SURVEY.md §1/§2.1.
 """

@@ -4,8 +4,8 @@ Replaces the reference's scipy ``nnls`` (Fortran Lawson-Hanson, sequential
 and data-dependent — reference snnls/snnls.py:87, snnls/orthopursuit.py:40)
 with a fixed-iteration accelerated projected-gradient (FISTA + adaptive
 restart) on the *gathered active-set* system: the active set is small
-(≤ coreset size M), so the Gram matrix is a tiny (K, K) block that lives in
-VMEM and the whole solve is a bounded-shape jittable loop.
+(≤ coreset size M), so the Gram matrix is a tiny (K, K) block and the
+whole solve is a bounded-shape jittable loop.
 
 For a convex problem FISTA converges to the same minimizer Lawson-Hanson
 finds; the iteration count trades exactness for static shapes.

@@ -1,6 +1,6 @@
 """Sparse non-negative least squares solvers as jitted state machines.
 
-TPU-native redesign of the reference's ``bayesiancoresets/snnls`` package
+JAX redesign of the reference's ``bayesiancoresets/snnls`` package
 (snnls/snnls.py, giga.py, frankwolfe.py, orthopursuit.py, sampling.py).
 
 Key departures from the reference architecture:
@@ -23,8 +23,8 @@ Key departures from the reference architecture:
   fixed trace shape across trials.
 - **Data-point-major layout.**  The projection matrix is stored as
   ``V = A.T`` with shape (n, S): scores for all n candidates are one
-  (n,S)@(S,2) matmul that XLA tiles onto the MXU, and the global argmax
-  reduces over the sharded n axis.
+  (n,S)@(S,2) matmul, and the global argmax reduces over the sharded n
+  axis.
 - **Explicit-collective SPMD.**  Sharded builds run the same step functions
   INSIDE ``jax.shard_map`` (parallel/coreset.py) with static ``axes =
   (data_axis, proj_axis)`` threading: every data-dependent row access is an
@@ -34,13 +34,21 @@ Key departures from the reference architecture:
   V shard — the same per-point cost as the single-device build (GSPMD's
   automatic partitioning of the one-hot-masked formulation used in earlier
   revisions burned a second full-V pass per row read).
+
+Row and column padding: reduced-precision selection copies and the
+int8-resident buffer are padded to a multiple of 1024 rows and 128
+columns.  The padding is correct on any backend (padded rows are invalid,
+padded columns are zero); whether the GPU wants it at all is not measured
+yet.
 """
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import NamedTuple
 
+import numpy as np
 import jax
 import jax.numpy as jnp
 
@@ -49,6 +57,44 @@ from .nnls import nnls_rows
 
 REFRESH_EVERY = 64  # exact xw = A@w recompute cadence (f32 drift control)
 _NEG_INF = -jnp.inf
+NORM_FLOOR = float(jnp.finfo(jnp.float32).eps)
+# float32 dots whose results feed the error-monotonicity gate run at
+# HIGHEST precision: at the default precision XLA:GPU computes float32
+# products in TF32 (about 3e-4 relative error on an H100), far above the
+# gate's TOL=1e-6 slack, and builds latch early.  The select dots stay at
+# the default: they only rank candidates.
+_GATE = jax.lax.Precision.HIGHEST
+
+
+def above_norm_floor(norms, bnorm, mean_norm=None):
+    """Rows a coreset constructor keeps selectable (host-side, numpy).
+
+    The reference drops exactly-zero projections (hilbert.py:20-22).  Here
+    a row is masked as a candidate only when it is negligible on BOTH of
+    float32's scales:
+
+    - the target: ``norm <= eps * ||b||``.  GIGA normalizes rows and
+      reaches b with weights inversely proportional to their norms, so
+      such a row needs a weight above 1/eps to carry b.  Saturated
+      logistic points (|z.theta| >> 1: log-likelihood ~ -exp(-|z.theta|)
+      at every sample) are such rows in a Laplace tangent space, where
+      ||b|| stays O(d) as N grows; GIGA picks them for their direction and
+      weights them 1e8 and up, which no float32 weighted log-density
+      downstream carries (weighted NUTS on such a coreset returned NaN);
+    - the rows: ``norm <= sqrt(eps) * mean_norm``, so its squared norm is
+      below float32 resolution of an average row's.  This keeps the floor
+      from growing with N when the rows are coherent (||b|| ~ N x the mean
+      norm, e.g. raw vectors with a common mean): there ``eps * ||b||``
+      alone would reach the mean row norm at N ~ 1/eps.
+
+    ``mean_norm`` defaults to the mean of ``norms``; pass it when ``norms``
+    holds padding or only part of the rows.  Masked rows stay in b.
+    """
+    norms = np.asarray(norms)
+    if mean_norm is None:
+        mean_norm = float(norms.mean(dtype=np.float64)) if norms.size else 0.0
+    floor = min(NORM_FLOOR * float(bnorm), math.sqrt(NORM_FLOOR) * mean_norm)
+    return norms > floor
 
 
 class SNNLSConsts(NamedTuple):
@@ -66,7 +112,7 @@ class SNNLSConsts(NamedTuple):
     #                    - bfloat16: half the HBM traffic of the score matmul
     #                    - int8: quarter traffic; rows stored PRE-NORMALIZED
     #                      and scaled to +-127 (the /norms division folds into
-    #                      the dequantization constant), MXU int8 path
+    #                      the dequantization constant), int8 dot
     #                    - EMPTY (0, S): selection reads V directly (bit-exact
     #                      reference behavior, and the int8-RESIDENT mode
     #                      where V itself is the quantized copy).  A zero-row
@@ -120,8 +166,8 @@ def _make_consts(V, b, valid, sampling, select_dtype) -> SNNLSConsts:
             Vsel = jnp.clip(jnp.round(Vn * 127.0), -127, 127).astype(jnp.int8)
         else:
             Vsel = V.astype(select_dtype)
-        # pad to TPU-friendly tiles once (rows: select kernel tile multiple;
-        # cols: lane width) — padded rows/cols are zero and masked out
+        # pad once to the row/column tile multiples (see module note) —
+        # padded rows/cols are zero and masked out
         n, S = Vsel.shape
         np_rows = -(-n // 1024) * 1024
         Sp = -(-S // 128) * 128
@@ -171,10 +217,9 @@ def make_consts_quantized(Vq: jax.Array, norms: jax.Array, b: jax.Array,
     exactly the ``select_dtype=int8`` path) and reweighting (single rows /
     small active-set gathers are dequantized on the fly via
     ``row = norms[f] * Vq[f] / 127``), trading ~0.4%-per-element reweight
-    precision for the capacity.  Rows are padded to the select-kernel tile
-    multiple and S to the lane width; padded rows are invalid, padded
-    columns are zero (b is zero-padded to match, which changes no inner
-    product).
+    precision for the capacity.  Rows are padded to a multiple of 1024 and S
+    to a multiple of 128; padded rows are invalid, padded columns are zero (b is
+    zero-padded to match, which changes no inner product).
     """
     Vq = jnp.asarray(Vq)
     if Vq.dtype != jnp.int8:
@@ -215,7 +260,7 @@ def _is_quantized(consts: SNNLSConsts) -> bool:
 #     zeros, one psum — O(S) (row) or O(1) (scalar) traffic, never a pass
 #     over V (the one-hot masked formulation this replaces streamed the
 #     whole local shard per read — a measured ~1.5x per-point work
-#     inflation, VERDICT r3 weak #1).
+#     inflation).
 #   - argmax over the n axis: local argmax + an O(devices) all_gather of
 #     (value, global index) pairs; first-max tie-break matches jnp.argmax.
 #   - reductions over n / S: local partial + psum over the matching axis.
@@ -387,16 +432,18 @@ def _v_matvec(consts: SNNLSConsts, w: jax.Array, support: int = 1024,
     REFRESH_EVERY cadence, so the dense pass is amortized.
     """
     if not _is_quantized(consts):
-        return _psum_n(jnp.dot(consts.V.T, w, preferred_element_type=jnp.float32),
-                       axes)
+        return _psum_n(jnp.dot(consts.V.T, w, precision=_GATE,
+                               preferred_element_type=jnp.float32), axes)
     if _data_ax(axes):
         wn = w * consts.norms * (1.0 / 127.0)
         return _psum_n(jnp.dot(wn, consts.V.astype(jnp.float32),
+                               precision=_GATE,
                                preferred_element_type=jnp.float32), axes)
     k = min(int(support), w.shape[0])
     vals, idx = jax.lax.top_k(w, k)
     rows = consts.V[idx].astype(jnp.float32) * (consts.norms[idx] * (1.0 / 127.0))[:, None]
-    return jnp.dot(vals, rows, preferred_element_type=jnp.float32)
+    return jnp.dot(vals, rows, precision=_GATE,
+                   preferred_element_type=jnp.float32)
 
 
 def init_state(consts: SNNLSConsts, key: jax.Array | None = None,
@@ -480,6 +527,11 @@ def _select_dots(consts: SNNLSConsts, dirs, axes=None):
         q = jnp.clip(jnp.round(d2 * 127.0), -127, 127).astype(jnp.int8)
         dots = jax.lax.dot_general(Vsel, q, (((1,), (0,)), ((), ())),
                                    preferred_element_type=jnp.int32)
+        # keep the 1/127^2 scale out of the GEMM fusion: when XLA:GPU
+        # splits K (seen at 100352 x 512 on an H100), it moves the scaling
+        # epilogue ahead of the split-K reduction in int32, truncating the
+        # scale to 0 and returning all-zero scores
+        dots = jax.lax.optimization_barrier(dots)
         out = _psum_s(dots.astype(jnp.float32)[:n], axes) * (1.0 / (127.0 * 127.0))
     else:
         dots = jnp.dot(Vsel, d2.astype(Vsel.dtype),
@@ -518,7 +570,7 @@ def _support_matvec(consts: SNNLSConsts, w, idcs, size, axes=None):
     safe = jnp.where(mask, idcs, 0)
     rows = _gather_rows(consts, safe, mask, axes=axes)
     return jnp.dot(_gather_vec(w, safe, mask, axes=axes), rows,
-                   preferred_element_type=jnp.float32)
+                   precision=_GATE, preferred_element_type=jnp.float32)
 
 
 def _rank1_update(state: SNNLSState, consts: SNNLSConsts, f, alpha, beta,
@@ -571,14 +623,14 @@ _WSCALE_FLOOR = 1e-10   # fold the carried scale into w before it underflows
 
 def _aux_from_xw(consts: SNNLSConsts, xw: jax.Array, axes=None,
                  wscale=1.0) -> GigaAux:
-    return GigaAux(_psum_s(jnp.dot(consts.b, xw), axes),
-                   _psum_s(jnp.dot(xw, xw), axes),
+    return GigaAux(_psum_s(jnp.dot(consts.b, xw, precision=_GATE), axes),
+                   _psum_s(jnp.dot(xw, xw, precision=_GATE), axes),
                    _cached_error(consts, xw, axes),
                    jnp.asarray(wscale, jnp.float32))
 
 
 def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol,
-               use_pallas: bool = False, axes=None):
+               axes=None):
     bnorm = jnp.where(consts.bnorm == 0, 1.0, consts.bnorm)
     bn = consts.b / bnorm                            # loop-invariant
     nw = jnp.sqrt(jnp.maximum(aux.nw2, 0.0))
@@ -593,35 +645,20 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol,
     cdirn = cdir / jnp.where(cdirnrm == 0, 1.0, cdirnrm)
 
     dirs = jnp.stack([cdirn, xwn], axis=1)           # (S, 2), unit columns
-    if use_pallas:
-        # fused scores+argmax in one streaming pass (ops/pallas_kernels.py)
-        from .pallas_kernels import giga_select_pallas
-        n = consts.V.shape[0]
-        Vsel = _vsel(consts)
-        np_rows = Vsel.shape[0]
-        if Vsel.dtype == jnp.int8:
-            nrminv = jnp.ones(n, jnp.float32)
-        else:
-            nrminv = 1.0 / consts.norms
-        nrminv = jnp.pad(nrminv, (0, np_rows - n), constant_values=1.0)
-        bias = jnp.where(consts.valid, 0.0, _NEG_INF)
-        bias = jnp.pad(bias, (0, np_rows - n), constant_values=_NEG_INF)
-        f, _ = giga_select_pallas(Vsel, dirs, nrminv, bias)
-    else:
-        # scores for every candidate: one thin matmul (n,S)@(S,2)
-        dots = _select_dots(consts, dirs, axes=axes)  # == An^T [cdir, xw]
-        d1 = dots[:, 1]
-        geo_ok = (d1 > -1.0 + 1e-14) & (1.0 - d1 * d1 > 0.0)   # giga.py:33
-        denom = jnp.sqrt(jnp.clip(1.0 - d1 * d1, 1e-30, None))
-        score = jnp.where(geo_ok, dots[:, 0] / denom, 0.0)     # giga.py:34-37
-        score = jnp.where(consts.valid, score, _NEG_INF)
-        f, _ = _argmax_n(score, axes=axes)
+    # scores for every candidate: one thin matmul (n,S)@(S,2)
+    dots = _select_dots(consts, dirs, axes=axes)      # == An^T [cdir, xw]
+    d1 = dots[:, 1]
+    geo_ok = (d1 > -1.0 + 1e-14) & (1.0 - d1 * d1 > 0.0)   # giga.py:33
+    denom = jnp.sqrt(jnp.clip(1.0 - d1 * d1, 1e-30, None))
+    score = jnp.where(geo_ok, dots[:, 0] / denom, 0.0)     # giga.py:34-37
+    score = jnp.where(consts.valid, score, _NEG_INF)
+    f, _ = _argmax_n(score, axes=axes)
 
     # reweight (giga.py:40-64): one row gather + one (2,S) matvec + scalars
     xf = _v_row(consts, f, axes=axes)
     nf = _get1(consts.norms, f, axes=axes)
     xfn = xf / nf
-    two = _psum_s(jnp.dot(jnp.stack([bn, xwn], axis=0), xfn,
+    two = _psum_s(jnp.dot(jnp.stack([bn, xwn], axis=0), xfn, precision=_GATE,
                           preferred_element_type=jnp.float32), axes)
     bxf, xwxf = two[0], two[1]                       # <bn,xfn>, <xwn,xfn>
     gA = bxf - bxwn * xwxf
@@ -643,7 +680,7 @@ def _giga_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol,
 
     # scale-carried weight update: true w = aux.wscale * state.w, so the
     # global alpha rescale is one scalar multiply and only index f is
-    # written — no O(n) pass (VERDICT r4 weak #1: the (n,) rescale+commit
+    # written — no O(n) pass (the (n,) rescale+commit
     # passes cost real HBM bandwidth at beyond-cache n)
     ws = aux.wscale
     old_raw = _get1(state.w, f, axes=axes)
@@ -730,7 +767,7 @@ def _fw_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol,
 
     # line search (frankwolfe.py:26-37)
     dvec = nsum / nf * xf - state.xw
-    gammanum = _psum_s(jnp.dot(dvec, resid), axes)
+    gammanum = _psum_s(jnp.dot(dvec, resid, precision=_GATE), axes)
     gammadenom = _psum_s(jnp.sum(dvec * dvec), axes)
     ok = (gammanum >= 0.0) & (gammadenom > 0.0) & (gammanum <= gammadenom)
     gamma = _safe_div(gammanum, gammadenom)
@@ -782,14 +819,15 @@ def _omp_step(consts: SNNLSConsts, state: SNNLSState, aux: GigaAux, tol,
     # system, warm-started from the current weights (fewer FISTA iterations
     # to re-converge after each single-atom change).  Sharded: the gathered
     # (K, S) block costs one O(K*S) psum, then the solve runs replicated —
-    # O(K*S) per iteration, independent of n (VERDICT r3 missing #2).
+    # O(K*S) per iteration, independent of n.
     mask0 = jnp.arange(idcs.shape[0]) < size
     safe_idcs = jnp.where(mask0, idcs, 0)
     x0 = _gather_vec(state.w, safe_idcs, mask0, axes=axes)
     Aact = _gather_rows(consts, safe_idcs, mask0, axes=axes)
     w_act = nnls_rows(Aact, consts.b, mask0, num_iters=nnls_iters, x0=x0)
     w = _scatter_vec(state.w, safe_idcs, mask0, w_act, axes=axes)
-    xw = jnp.dot(w_act, Aact, preferred_element_type=jnp.float32)  # exact: support == active slots
+    xw = jnp.dot(w_act, Aact, precision=_GATE,   # exact: support == active slots
+                 preferred_element_type=jnp.float32)
     return w, xw, state.cts, idcs, size, state.key, jnp.array(True), overflow, aux
 
 
@@ -868,8 +906,8 @@ _CHECK_MONOTONE = {
 # ---------------------------------------------------------------------------
 
 def build_core(consts: SNNLSConsts, state: SNNLSState, itrs, tol,
-               method: str = "giga", use_pallas: bool = False,
-               matvec_k: int = 1024, axes=None) -> SNNLSState:
+               method: str = "giga", matvec_k: int = 1024,
+               axes=None) -> SNNLSState:
     """Run up to ``itrs`` greedy iterations (continues from current state).
 
     The un-jitted core: :func:`build` wraps it for single-device use, and
@@ -883,22 +921,13 @@ def build_core(consts: SNNLSConsts, state: SNNLSState, itrs, tol,
     rows + zero contributions psum to the exact same values); sampling
     solvers match in distribution only (see _sampling_step).
 
-    ``use_pallas=True`` routes the GIGA selection through the fused Pallas
-    kernel (requires a reduced-precision select copy, i.e. select_dtype
-    set; single-device only).  ``matvec_k`` bounds the weight support for
-    sparse-gather matvecs in int8-resident mode (see _v_matvec); ignored
-    for f32 problems.
+    ``matvec_k`` bounds the weight support for sparse-gather matvecs in
+    int8-resident mode (see _v_matvec); ignored for f32 problems.
     """
     if axes is not None and method == "orthopursuit" and _proj_ax(axes):
         raise ValueError("orthopursuit's active-set NNLS needs full-S rows; "
                          "shard the data axis only (shard_proj=False)")
-    if use_pallas and method == "giga":
-        if axes is not None:
-            raise ValueError("the fused Pallas select kernel is single-device; "
-                             "sharded builds use the XLA select matmul")
-        step_fn = partial(_giga_step, use_pallas=True)
-    else:
-        step_fn = partial(_STEP_FNS[method], axes=axes)
+    step_fn = partial(_STEP_FNS[method], axes=axes)
     check_monotone = _CHECK_MONOTONE[method]
     itr_end = state.itr + jnp.asarray(itrs, jnp.int32)
 
@@ -989,14 +1018,13 @@ def build_core(consts: SNNLSConsts, state: SNNLSState, itrs, tol,
     return final
 
 
-@partial(jax.jit, static_argnames=("method", "use_pallas", "matvec_k"),
-         donate_argnums=(1,))
+@partial(jax.jit, static_argnames=("method", "matvec_k"), donate_argnums=(1,))
 def build(consts: SNNLSConsts, state: SNNLSState, itrs, tol, method: str = "giga",
-          use_pallas: bool = False, matvec_k: int = 1024) -> SNNLSState:
+          matvec_k: int = 1024) -> SNNLSState:
     """Jitted single-device build (see :func:`build_core`).  Mesh-sharded
     builds go through parallel/coreset.py's shard_map wrapper instead."""
     return build_core(consts, state, itrs, tol, method=method,
-                      use_pallas=use_pallas, matvec_k=matvec_k, axes=None)
+                      matvec_k=matvec_k, axes=None)
 
 
 def optimize_active_core(consts: SNNLSConsts, state: SNNLSState,
@@ -1014,9 +1042,11 @@ def optimize_active_core(consts: SNNLSConsts, state: SNNLSState,
     Aact = _gather_rows(consts, safe_idcs, mask, axes=axes)
     w_act = nnls_rows(Aact, consts.b, mask, num_iters=num_iters)
     w = _scatter_vec(state.w, safe_idcs, mask, w_act, axes=axes)
-    xw = jnp.dot(w_act, Aact, preferred_element_type=jnp.float32)
+    xw = jnp.dot(w_act, Aact, precision=_GATE,
+                 preferred_element_type=jnp.float32)
     prev_w_act = _gather_vec(state.w, safe_idcs, mask, axes=axes)
-    prev_cost = _cached_error(consts, jnp.dot(prev_w_act, Aact, preferred_element_type=jnp.float32))
+    prev_cost = _cached_error(consts, jnp.dot(
+        prev_w_act, Aact, precision=_GATE, preferred_element_type=jnp.float32))
     new_cost = _cached_error(consts, xw)
     ok = new_cost <= prev_cost * (1.0 + tol)
     new_state = state._replace(
@@ -1146,7 +1176,6 @@ class SparseNNLS:
         return int(jnp.sum(self.state.w > 0))
 
     def weights(self):
-        import numpy as np
         return np.asarray(self.state.w)
 
     def active(self):
@@ -1158,7 +1187,6 @@ class SparseNNLS:
         loop enforces nnz(w) <= max_active (see _track_support); rows with
         w == 0 are filtered out.
         """
-        import numpy as np
         if self.state.idcs.shape[0]:
             if self._mesh is not None:
                 from ..parallel.coreset import _active_fn
@@ -1231,7 +1259,6 @@ class SparseNNLS:
         solution, like the reference's scipy nnls call), with the same
         cost-increase rollback + numeric-limit latch.
         """
-        import numpy as np
         if self._mesh is not None:
             # active set via the O(max_active) sharded extraction; the
             # re-solve gathers K rows with one O(K*S) psum inside shard_map

@@ -1,6 +1,6 @@
 """Distributed/parallel subsystem: meshes, sharded construction, sharded chains.
 
-TPU-native answer to SURVEY.md §2.5 (the reference is single-process): DP
+The answer to SURVEY.md §2.5 (the reference is single-process): DP
 over dataset rows, TP over the projection dimension, chain parallelism for
 MCMC; collectives are inserted by XLA from sharding annotations.
 """

@@ -16,7 +16,7 @@ Per-device, per-iteration work is therefore ONE streaming pass over the
 local V shard — identical per-point cost to the single-device build.  The
 earlier GSPMD formulation (one-hot masked reductions, auto-partitioned)
 paid a measured ~1.5x per-point inflation because every row read streamed
-the full local shard a second time (VERDICT r3 weak #1); the shard_map
+the full local shard a second time; the shard_map
 build is the fix, with the collective volume asserted O(S) and
 n-independent from compiled HLO in tests/test_sharding_hlo.py.
 
@@ -153,7 +153,7 @@ def make_sharded_consts(A, b, mesh: Mesh, valid=None, sampling=None,
 
     Inputs are zero-padded (with ``valid=False`` on padded columns) so the
     data axis divides the mesh's data dimension — and, when a
-    reduced-precision selection copy is requested, so the tile padding
+    reduced-precision selection copy is requested, so the 1024-row padding
     ``make_consts`` applies lands on shard boundaries (local Vsel rows must
     align with local V rows).  Returns (consts, n_orig, S_orig).
     """
@@ -213,10 +213,10 @@ def build_sharded_quantized(Vq, norms, b, itrs: int, mesh: Mesh,
                             max_active: int = 1024) -> snnls.SNNLSState:
     """Sharded build over int8-RESIDENT constants (beyond-HBM x DP).
 
-    Composes `make_consts_quantized` with row sharding: each chip holds
-    1/|mesh| of the int8 copy, so a pod slice scales the single-chip
-    beyond-HBM ceiling by the device count (e.g. 8 x v5e ~ N=160M at
-    S=512).  Rows are padded to a shard-aligned tile multiple up front
+    Composes `make_consts_quantized` with row sharding: each device holds
+    1/|mesh| of the int8 copy, so the mesh scales the single-device
+    beyond-HBM ceiling by the device count.  Rows are padded to a
+    shard-aligned multiple of 1024 up front
     (see build_sharded); at beyond-HBM scale allocate the buffer
     pre-padded per device (coresets/hilbert.py streamed construction +
     make_sharded_quantized_consts) so no host-side full copy exists.

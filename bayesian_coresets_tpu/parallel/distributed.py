@@ -1,6 +1,6 @@
-"""Multi-host initialization (ICI within a slice, DCN across hosts).
+"""Multi-host initialization.
 
-The reference is strictly single-process (SURVEY.md §2.5).  For pod slices,
+The reference is strictly single-process (SURVEY.md §2.5).  Across hosts,
 JAX's standard multi-controller model applies: every host runs the same
 program, ``initialize()`` wires up the global device view, and all the
 sharded paths in this package (``build_sharded``, ``run_nuts_sharded``,
@@ -19,8 +19,8 @@ def initialize(coordinator_address: str | None = None,
     """Initialize jax.distributed (no-op if already initialized or single
     process).  Returns the global device count.
 
-    On Cloud TPU pods the arguments are auto-detected from the environment;
-    pass them explicitly for other fabrics.
+    JAX auto-detects the arguments only on clusters it recognises (SLURM,
+    for one); pass them explicitly elsewhere.
     """
     if coordinator_address is not None or num_processes not in (None, 1):
         # NOTE: probing jax.process_count() here would itself initialize the

@@ -5,13 +5,12 @@ chunk, quantized ON-CHIP to the int8-resident representation (normalized
 int8 rows + f32 norms, ops/snnls.py make_consts_quantized invariants), and
 written directly into each device's row shard — no host or device ever
 holds more than its 1/|mesh| int8 shard plus one f32 projection chunk, so
-the capacity ceiling scales with the device count (8 x v5e ~ N=160M at
-S=512).  Projection runs INSIDE one ``jax.shard_map`` step, so the
-construction phase parallelizes with the mesh too (SCALING_r04.json
-``compiled_work.stream_projection_step``: per-device step work flat in the
-mesh size).
+the capacity ceiling scales with the device count.  Projection runs
+INSIDE one ``jax.shard_map`` step, so the construction phase parallelizes
+with the mesh too (per-device step work is flat in the mesh size,
+tests/test_sharding_hlo.py).
 
-Multi-controller (pod) deployments call :func:`streamed_row_layout` to
+Multi-controller (multi-host) deployments call :func:`streamed_row_layout` to
 learn which global rows THIS process must load, then
 :func:`make_streamed_quantized_consts` with only those rows; all
 processes participate in the same SPMD steps (jax.distributed must be
@@ -133,8 +132,7 @@ def make_streamed_quantized_consts(local_rows, project_fn, chunk: int, mesh,
     to default-device projection).
 
     ``S``: the projection dimension, if the caller already knows it —
-    otherwise one tiny probe projection is run to read it (an extra eager
-    round trip on relay-attached devices).
+    otherwise one tiny probe projection is run to read it.
 
     All processes must call this (and the subsequent solver operations)
     collectively.  Returns :class:`~..ops.snnls.SNNLSConsts` with the int8
@@ -213,7 +211,21 @@ def make_streamed_quantized_consts(local_rows, project_fn, chunk: int, mesh,
     # multi-controller safe (each process contributes only its shards)
     gidx_all = np.arange(len(pos) * rows_loc) + base
     real = gidx_all < n
-    valid_local = real & (norms_local > 0.0)
+
+    def _global_sum(loc):
+        # one tiny cross-process allgather when distributed
+        loc = np.asarray(loc, np.float64)
+        if jax.process_count() > 1:
+            from jax.experimental import multihost_utils
+            return np.asarray(multihost_utils.process_allgather(loc)).sum(axis=0)
+        return loc
+
+    # b_total is already global (the step psums it over the mesh); the
+    # floor's mean row norm is taken over every process's real rows
+    n_real, real_sum = _global_sum([real.sum(),
+                                    (norms_local * real).sum(dtype=np.float64)])
+    valid_local = real & snnls.above_norm_floor(
+        norms_local, np.linalg.norm(b_total), real_sum / max(n_real, 1.0))
     norms_fixed = np.where(valid_local, norms_local, 1.0).astype(np.float32)
 
     def _global_1d(vals, dtype):
@@ -227,16 +239,10 @@ def make_streamed_quantized_consts(local_rows, project_fn, chunk: int, mesh,
     norms_g = _global_1d(norms_fixed, np.float32)
     valid_g = _global_1d(valid_local, bool)
 
-    # global scalar reductions for bnorm / sampling probabilities / the
-    # all-invalid guard: one tiny cross-process allgather when distributed
-    loc = np.array([float(valid_local.sum()),
-                    float((norms_local * valid_local).sum())], np.float64)
-    if jax.process_count() > 1:
-        from jax.experimental import multihost_utils
-        tot = np.asarray(multihost_utils.process_allgather(loc)).sum(axis=0)
-    else:
-        tot = loc
-    n_valid, norm_sum = tot
+    # global scalar reductions for sampling probabilities and the
+    # all-invalid guard
+    n_valid, norm_sum = _global_sum([valid_local.sum(),
+                                     (norms_local * valid_local).sum()])
     if n_valid == 0:
         raise ValueError("all projected vectors are zero or masked")
     b = np.pad(b_total.astype(np.float32), (0, Sp - S))
@@ -262,10 +268,8 @@ def make_streamed_quantized_consts(local_rows, project_fn, chunk: int, mesh,
 
 def lower_stream_step_for_analysis(mesh, csize: int, S: int, d: int):
     """Lower ONE SPMD stream step on a synthetic logistic projector and
-    return the compiled executable — the shared program used by BOTH the
-    scaling harness (scripts/bench_scaling.py compiled-work accounting)
-    and the HLO communication test (tests/test_sharding_hlo.py), so the
-    two always analyze the same program HilbertCoreset runs."""
+    return the compiled executable — the program HilbertCoreset runs, for
+    the HLO communication test (tests/test_sharding_hlo.py)."""
     from ..coresets.projector import center_lls
     from ..models import logistic
 

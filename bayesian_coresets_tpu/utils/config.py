@@ -2,8 +2,8 @@
 
 The reference keeps a module-global ``TOL = 1e-12`` with a ``set_tolerance``
 mutator (reference: bayesiancoresets/util/__init__.py:4-7).  We keep the same
-user-facing API, but the default is sized for float32 TPU arithmetic rather
-than float64 CPU arithmetic; jitted solvers take the tolerance as a traced
+user-facing API, but the default is sized for float32 device arithmetic
+rather than float64 CPU arithmetic; jitted solvers take the tolerance as a traced
 scalar argument so changing it never triggers recompilation.
 """
 
@@ -33,6 +33,6 @@ def default_dtype() -> jnp.dtype:
 
     float32: the coreset algorithms are precision-sensitive (geodesic
     directions, error monotonicity), so we do not downcast below f32; matmuls
-    request ``preferred_element_type=float32`` so the MXU accumulates in f32.
+    request ``preferred_element_type=float32`` so they accumulate in f32.
     """
     return jnp.float32

@@ -1,9 +1,7 @@
 """Compiled-HLO inspection helpers: collective-communication accounting.
 
 Used by tests/test_sharding_hlo.py (asserting the sharded build never
-replicates its (n, S) operand) and scripts/bench_scaling.py (the ICI cost
-model feeds on the ACTUAL per-iteration collective bytes of the compiled
-program rather than hand-derived estimates).
+replicates its (n, S) operand and that its collective bytes stay O(S)).
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """PRNG discipline helpers.
 
 The reference relies on a single global NumPy stream seeded per trial
-(reference: examples/gaussian/main.py:44).  The TPU framework threads
+(reference: examples/gaussian/main.py:44).  This framework threads
 ``jax.random`` keys explicitly; these helpers keep per-trial reproducibility
 independent of device/host count.
 """

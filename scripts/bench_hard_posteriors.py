@@ -1,10 +1,10 @@
-"""Head-to-head: TPU-resident convergence mechanisms on the hardest
+"""Head-to-head: on-device convergence mechanisms on the hardest
 weighted coreset posteriors (airportdelays / biketrips, regular + _large).
 
 Round 2 left the framework converging these posteriors on the HOST (a CPU
 retry was the operative mechanism; accelerator split-R-hat reached 16-74
 on biketrips_large).  This script measures, per (dataset, coreset), each
-TPU-resident arm on identical coreset weights:
+on-device arm on identical coreset weights:
 
   naive+diag    round-2 status quo: mode-relative density via f32
                 subtraction of full log-likelihoods, diagonal mass

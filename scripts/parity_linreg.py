@@ -1,4 +1,4 @@
-"""Reference-canonical linear-regression parity run (VERDICT r3 missing #4).
+"""Reference-canonical linear-regression parity run.
 
 Config = the reference's own defaults (examples/linear_regression/main.py:
 280-288): N=10 000 rows, 6x50+1=301 RBF bases, proj_dim S=100, six
@@ -12,14 +12,12 @@ Reference side: the actual numpy/scipy code imported from /root/reference
 BlackBoxProjector over model_linreg), executed in-process on CPU.  SVI is
 excluded from the reference arm: at this scale its inner loop re-projects
 all N rows on every one of opt_itrs x M gradient steps (~1e13 numpy flops,
-hours per trial); our SVI quality parity is recorded at the gaussian scale
-(PARITY_RESULTS.md) and the full 7-alg sweep of OUR driver at this scale in
-the linreg section.
+hours per trial); SVI quality parity is held by the gaussian-scale tests.
 
 Ours: the same GIGA-OPT / US algorithms through bayesian_coresets_tpu on
 forced-CPU JAX (quality parity is hardware-independent).
 
-Writes runs/parity_linreg_canonical.json and prints a markdown table of
+Writes results/parity_linreg_canonical.json and prints a markdown table of
 per-M rKL medians over trials.
 """
 
@@ -178,8 +176,8 @@ def main():
                            "identical Z per trial for both sides"},
         "reference": ref_runs, "ours": our_runs,
     }
-    os.makedirs("runs", exist_ok=True)
-    with open("runs/parity_linreg_canonical.json", "w") as f:
+    os.makedirs("results", exist_ok=True)
+    with open("results/parity_linreg_canonical.json", "w") as f:
         json.dump(artifact, f, indent=1)
 
     for name in ("GIGA-OPT", "US"):

@@ -4,7 +4,7 @@ Each OS process owns 2 virtual CPU devices; ``jax.distributed.initialize``
 (via parallel.distributed.initialize) wires them into one 4-device global
 view, and a data-parallel GIGA build runs over a global mesh — the
 collectives cross the process boundary through the distributed runtime,
-exactly as they would cross DCN between pod hosts.
+exactly as they would cross the network between hosts.
 
 Usage: python distributed_worker.py <pid> <nproc> <coordinator> <outdir>
 """

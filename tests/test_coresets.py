@@ -489,3 +489,81 @@ def test_sparsevi_capacity_hint(gauss_setup):
     np.testing.assert_array_equal(a.idcs, b.idcs)
     a.reset()
     assert a._cap == 16 and a.size() == 0
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_hilbert_masks_rows_below_float32_floor(stream):
+    """A row far below eps * ||b|| (a saturated point's projection) stays
+    in the target b but is never a candidate: GIGA would weight it by
+    ~1/norm.  Rows above the floor stay selectable."""
+    from bayesian_coresets_tpu.coresets import (FamilyProjector,
+                                                identity_tangent_family)
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(64, 16)).astype(np.float32)
+    x[5] = 1e-9 * x.sum(axis=0)           # aligned with b, norm ~ 1e-8
+    x[7] = 1e-3 * x.sum(axis=0)           # small but above the floor
+    kw = {"stream_chunk_size": 32} if stream else {}
+    c = bct.HilbertCoreset(x, FamilyProjector(identity_tangent_family()), **kw)
+    valid = np.asarray(c.snnls.consts.valid)[:64]
+    assert not valid[5] and valid[7] and valid.sum() == 63
+    b = np.asarray(c.snnls.consts.b)[:16]
+    np.testing.assert_allclose(b, x.sum(axis=0), rtol=1e-5, atol=1e-5)
+    c.build(10)
+    assert 5 not in set(c.get()[2].tolist())
+
+
+def test_norm_floor_does_not_grow_with_coherent_rows():
+    """Coherent rows (||b|| ~ N x the mean row norm) at N = 2^24: eps*||b||
+    alone would exceed every row's norm; the floor stays a fraction of the
+    mean row norm, so every ordinary row stays selectable while a row far
+    below float32 resolution of the rows is still masked."""
+    from bayesian_coresets_tpu.ops.snnls import above_norm_floor
+    N = 1 << 24
+    norms = np.random.default_rng(0).uniform(0.5, 1.5, N).astype(np.float32)
+    norms[7] = 1e-6
+    bnorm = 0.9 * float(norms.sum(dtype=np.float64))   # nearly aligned rows
+    assert np.finfo(np.float32).eps * bnorm > norms.max()
+    keep = above_norm_floor(norms, bnorm)
+    assert not keep[7] and keep.sum() == N - 1
+
+
+def test_norm_floor_incoherent_target_masks_below_eps_b():
+    """A Laplace-like tangent space: ||b|| is small next to the sum of row
+    norms, so the eps*||b|| floor decides, independent of the row mean."""
+    from bayesian_coresets_tpu.ops.snnls import above_norm_floor
+    eps = float(np.finfo(np.float32).eps)
+    norms = np.array([1.0, 0.05, 1e-3, 0.5 * eps * 50.0, 2.0 * eps * 50.0])
+    np.testing.assert_array_equal(above_norm_floor(norms, 50.0),
+                                  [True, True, True, False, True])
+    # the explicit mean overrides the mean of the rows passed
+    np.testing.assert_array_equal(
+        above_norm_floor(norms, 50.0, mean_norm=1e-3),
+        norms > np.sqrt(eps) * 1e-3)
+
+
+def test_streamed_sharded_probe_skips_masked_rows(cpu_devices):
+    """A shard whose first row is below the norm floor: that row's stored
+    norm is 1 (masked rows carry no norm), so comparing it against its
+    re-projection would report a mismatch that is not one.  The
+    constructor probes each shard's first selectable row and stays SPMD."""
+    from bayesian_coresets_tpu.coresets import (FamilyProjector,
+                                                identity_tangent_family)
+    from bayesian_coresets_tpu.parallel import make_mesh
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(1024, 16)).astype(np.float32)
+    for r in (0, 384):                     # first rows of shards 0 and 3
+        x[r] = 1e-9 * x.sum(axis=0)
+    prj = FamilyProjector(identity_tangent_family())
+    c = bct.HilbertCoreset(x, prj, stream_chunk_size=64,
+                           mesh=make_mesh({"data": 8}))
+    assert c.streamed_sharded_mode == "spmd"
+    consts = c.snnls.consts
+    probe = c.spmd_probe(x, prj, consts)
+    assert [p["row"] for p in probe] == [1, 128, 256, 385, 512, 640, 768, 896]
+    assert all(p["ok"] for p in probe)
+    first = {p["row"]: p for p in c.spmd_probe(x, prj, consts,
+                                                rows=range(0, 1024, 128))}
+    for r in (0, 384):
+        assert first[r]["norm_spmd"] == 1.0 and not first[r]["ok"]
+        assert first[r]["int8_max_diff"] <= 1  # the int8 row itself agrees
+    assert all(first[r]["ok"] for r in first if r not in (0, 384))

@@ -306,7 +306,7 @@ class TestLinregLowRank:
 class TestLogLikelihoodDiff:
     """Stable per-datum ll(th) - ll(ref): the mode-relative weighted density
     must stay f32-accurate where naive subtraction cancels (the mechanism
-    that left biketrips/airportdelays coreset NUTS unconverged on TPU)."""
+    that left biketrips/airportdelays coreset NUTS unconverged in float32)."""
 
     def _f64(self, fn, *args):
         with jax.enable_x64():

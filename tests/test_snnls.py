@@ -473,3 +473,36 @@ def test_fw_long_build_refresh_exactness(rng):
     assert (w >= 0).all()
     want = np.linalg.norm(np.asarray(A, np.float64) @ w - np.asarray(b, np.float64))
     np.testing.assert_allclose(alg.error(), want, rtol=1e-4, atol=1e-5)
+
+
+def _int8_select_case(rows, S, Sp, k, seed=0):
+    from bayesian_coresets_tpu.ops import make_consts
+    rng = np.random.default_rng(seed)
+    V = rng.normal(size=(rows, S)).astype(np.float32)
+    consts = make_consts(jnp.asarray(V.T), jnp.asarray(V.sum(0)),
+                         select_dtype=jnp.int8)
+    dirs = rng.normal(size=(S, k)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=0)
+    q = np.clip(np.round(np.pad(dirs, ((0, Sp - S), (0, 0))) * 127), -127, 127)
+    ref = np.asarray(consts.Vsel, np.float64) @ q / 127.0 ** 2
+    return consts, jnp.asarray(dirs), ref[:rows]
+
+
+def test_int8_select_scale_stays_out_of_the_gemm():
+    """The int8 score dot is fenced before its 1/127^2 scale: XLA:GPU's
+    split-K rewrite otherwise moves the scale into int32 and zeroes it."""
+    from bayesian_coresets_tpu.ops.snnls import _select_dots
+    consts, dirs, ref = _int8_select_case(1000, 100, 128, 2)
+    fn = jax.jit(_select_dots)
+    assert "optimization_barrier" in fn.lower(consts, dirs).as_text()
+    np.testing.assert_allclose(np.asarray(fn(consts, dirs)), ref, atol=1e-6)
+
+
+@pytest.mark.chip
+def test_int8_select_dots_exact_on_gpu(gpu):
+    """At 100352 x 512 XLA splits K for the int8 select; the scores must
+    still equal the integer products."""
+    from bayesian_coresets_tpu.ops.snnls import _select_dots
+    consts, dirs, ref = _int8_select_case(100_000, 500, 512, 2)
+    got = np.asarray(jax.jit(_select_dots)(consts, dirs))
+    np.testing.assert_allclose(got, ref, atol=1e-6)
